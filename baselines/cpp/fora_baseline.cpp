@@ -7,17 +7,17 @@
 // since /root/reference shipped empty (see SURVEY.md header) and
 // BASELINE.json carries no published numbers.
 //
-// Conventions match the TPU engine exactly (see fora_tpu/algo/exact.py):
+// Conventions match the JAX engine exactly (see fora/algo/exact.py):
 //   * dangling (out-degree-0) nodes are absorbing;
 //   * rmax  = eps * sqrt(delta / (m * c)),  c = (2 eps/3 + 2) ln(2/p_f)
 //   * omega = rsum * c / (eps^2 delta); omega_v = ceil(r_v * omega_unit),
 //     each walk contributing r_v / omega_v at its endpoint;
 //   * top-k: delta from 1/k halved until kth_ppr >= (1+eps)*delta OR the
 //     per-node Bernstein UB/LB separation test fires — the same two
-//     acceptance paths as the TPU engine (fora_tpu/algo/bounds.py), so
+//     acceptance paths as the JAX engine (fora/algo/bounds.py), so
 //     the bench comparison is stopping-rule symmetric (round-2 verdict
 //     weak #5: without the bound path the baseline descended deeper
-//     delta levels than the TPU engine on borderline queries).
+//     delta levels than the JAX engine on borderline queries).
 //
 // Input: packed binary graph (written by bench.py):
 //   int64 n, int64 m, int64 indptr[n+1], int32 indices[m]
@@ -156,7 +156,7 @@ struct Fora {
   }
 
   // Bernstein UB/LB on the walk-phase estimate (same inversion as
-  // fora_tpu/algo/bounds.py: per-term bound c = 1/omega_unit, budget t).
+  // fora/algo/bounds.py: per-term bound c = 1/omega_unit, budget t).
   static double bern_ub(double mu_hat, double c, double t) {
     double s2 = 2.0 * t * c;
     double root = (std::sqrt(s2) + std::sqrt(s2 + 4.0 * (mu_hat + s2 / 3.0)))
@@ -169,7 +169,7 @@ struct Fora {
                     0.0);
   }
 
-  // Iterative top-k refinement (same schedule/acceptance as fora_tpu:
+  // Iterative top-k refinement (same schedule/acceptance as fora:
   // threshold rule OR confidence-bound separation).
   std::vector<std::pair<double, int64_t>> topk(int64_t s, int k) {
     double delta = 1.0 / std::max(k, 2);

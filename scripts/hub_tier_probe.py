@@ -1,9 +1,9 @@
-"""Two-tier hub probe (round-4 verdict directive 7 tail): does splitting
-the hub operand into TWO 64 MB tiers (top 2^17 + next 2^17 out-degree
-sources) beat one 64 MB tier (H=2^17, the adopted default) or one 128 MB
-tier (H=2^18, measured no-gain in round 4)?
+"""Two-tier hub probe: does splitting the hub operand into TWO 64 MB tiers
+(top 2^17 + next 2^17 out-degree sources) beat one 64 MB tier (H=2^17,
+the default) or one 128 MB tier (H=2^18)?
 
-Times a full judged-scale superstep, fenced, for each layout.
+Times a full judged-scale superstep (jax.block_until_ready) for each
+layout.
 Usage: python scripts/hub_tier_probe.py [--nlog2 22]
 """
 
@@ -25,13 +25,12 @@ def main():
     ap.add_argument("--batch", type=int, default=128)
     args = ap.parse_args()
 
-    import bench
-    bench.enable_compile_cache()
+    from fora.utils.compile_cache import enable_compile_cache
+    enable_compile_cache()
     import jax
     import jax.numpy as jnp
-    from fora_tpu.graph.csr import CSRGraph, to_device
-    from fora_tpu.ops import push as push_ops
-    from fora_tpu.utils.profiling import fence
+    from fora.graph.csr import CSRGraph, to_device
+    from fora.ops import push as push_ops
 
     z = np.load(ROOT / "bench_data" / f"rmat{args.nlog2}x16s7.npz")
     g = CSRGraph(**{k: z[k] for k in CSRGraph._fields if k in z.files})
@@ -68,12 +67,12 @@ def main():
         stepj = jax.jit(step)
         p = jnp.zeros((g.n, B), jnp.float32)
         r = jnp.asarray(r_host)
-        fence(stepj(dg, p, r, extra_tiers))
+        jax.block_until_ready(stepj(dg, p, r, extra_tiers))
         ts = []
         for _ in range(args.reps):
             t0 = time.time()
             out = stepj(dg, p, r, extra_tiers)
-            fence(out)
+            jax.block_until_ready(out)
             ts.append(time.time() - t0)
         return min(ts)
 

@@ -29,12 +29,13 @@ def main():
         import jax as _j; _j.config.update("jax_log_compiles", True)
     import jax
     import jax.numpy as jnp
-    bench.enable_compile_cache()
-    from fora_tpu import index as widx
-    from fora_tpu.algo import topk as topk_algo
-    from fora_tpu.config import ForaConfig
-    from fora_tpu.graph import to_device
-    from fora_tpu.ops import topk as topk_ops
+    from fora.utils.compile_cache import enable_compile_cache
+    enable_compile_cache()
+    from fora import index as widx
+    from fora.algo import topk as topk_algo
+    from fora.config import ForaConfig
+    from fora.graph import to_device
+    from fora.ops import topk as topk_ops
 
     merge = int(os.environ.get("FORA_PROF_MERGE", "0"))
     width = int(os.environ.get("FORA_PROF_WIDTH", "512"))
@@ -62,7 +63,7 @@ def main():
         ckey, rmax, omega_unit = runner._levels[level]
         runner._state_fn(ckey)  # builds runner._staged
         staged = runner._staged
-        from fora_tpu.ops import push as push_ops
+        from fora.ops import push as push_ops
         counts_col = index.counts_cum[:, ckey]
         thr = counts_col.astype(jnp.float32) / jnp.float32(omega_unit)
         # push
@@ -75,7 +76,7 @@ def main():
         # index SpMV
         t0 = time.time()
         rw, contrib = staged._weight(st.r, counts_col)
-        from fora_tpu.index import build as ib
+        from fora.index import build as ib
         for q in range(ckey, ib.NUM_BUCKETS):
             if staged._buckets[q] is None:
                 continue

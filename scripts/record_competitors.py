@@ -1,4 +1,4 @@
-"""Record competitor rows at bench scale (COMPETITORS_r{N}.json).
+"""Record competitor rows at bench scale (one JSON document).
 
 The reference's experimental section is comparative [R: SURVEY.md Sec. 2.1
 competitors]; this records one bench pass per competitor on the SAME
@@ -15,9 +15,7 @@ k=50, 32 eval sources):
               the exact top-50 of s (mass > delta_topk), mean relative
               error + pairs/sec — BiPPR answers pair queries, not top-k
 
-TPU job: background, generous internal timeout, never kill mid-flight.
-
-Usage: python scripts/record_competitors.py [--out COMPETITORS_r04.json]
+Usage: python scripts/record_competitors.py [--out competitors.json]
 """
 
 import argparse
@@ -36,7 +34,7 @@ TAG = "rmat19x16s7"
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--out", default="COMPETITORS_r04.json")
+    ap.add_argument("--out", default="competitors.json")
     ap.add_argument("--queries", type=int, default=32)
     ap.add_argument("--k", type=int, default=50)
     ap.add_argument("--eps", type=float, default=0.5)
@@ -47,23 +45,22 @@ def main():
                          "existing --out artifact)")
     ap.add_argument("--hub-walk-batch", type=int, default=4,
                     help="hubppr device batch: its per-hop hub-pool "
-                         "gathers make a walk program ~2x MC's, and any "
-                         "single program >60s trips the relay watchdog "
-                         "(measured crash at batch 8 / 2^22 walks)")
+                         "gathers make a walk program ~2x MC's")
     ap.add_argument("--hub-max-walks", type=int, default=1 << 21)
     args = ap.parse_args()
 
     import bench
-    bench.enable_compile_cache()
+    from fora.utils.compile_cache import enable_compile_cache
+    enable_compile_cache()
     import jax
     import jax.numpy as jnp
-    from fora_tpu.algo import exact
-    from fora_tpu.config import ForaConfig
-    from fora_tpu.eval import metrics, queries as qio
-    from fora_tpu.graph import to_device
-    from fora_tpu.graph.csr import CSRGraph
-    from fora_tpu.ops import push as push_ops, topk as topk_ops
-    from fora_tpu.utils import profiling
+    from fora.algo import exact
+    from fora.config import ForaConfig
+    from fora.eval import metrics, queries as qio
+    from fora.graph import to_device
+    from fora.graph.csr import CSRGraph
+    from fora.ops import push as push_ops, topk as topk_ops
+    from fora.utils import profiling
 
     z = np.load(ROOT / "bench_data" / f"{TAG}.npz")
     g = CSRGraph(**{k: z[k] for k in CSRGraph._fields if k in z.files})
@@ -84,7 +81,7 @@ def main():
     rows = []
 
     def eval_topk(name, run_batch, B, extra=None):
-        """run_batch(sources_i32[B], key) -> [n, B] estimate (fenced by
+        """run_batch(sources_i32[B], key) -> [n, B] estimate (completed by
         the np.asarray of the top-k below)."""
         key = jax.random.key(17)
         ids = np.zeros((args.queries, args.k), np.int64)
@@ -100,7 +97,7 @@ def main():
                 jnp.int32)
             ppr = run_batch(src, jax.random.fold_in(key, lo))
             vals, nids = topk_ops.topk_nodes(ppr, args.k)
-            nids = np.asarray(nids)          # fence
+            nids = np.asarray(nids)          # wait for the device
             ids[lo: lo + len(chunk)] = nids[: len(chunk)]
         secs = time.time() - t0
         prec = float(metrics.batch_precision_at_k(ids, exact_ids))
@@ -120,7 +117,7 @@ def main():
     # --- montecarlo ---
     num_walks = min(int(rcfg.omega_unit) + 1, args.max_walks)
     if want("montecarlo"):
-        from fora_tpu.algo import montecarlo as mc_algo
+        from fora.algo import montecarlo as mc_algo
         mc_fn = mc_algo.make_montecarlo_fn(dg, rcfg,
                                            max_walks=args.max_walks)
         eval_topk("montecarlo", mc_fn, args.walk_batch,
@@ -143,7 +140,7 @@ def main():
             st = push_ops.PushState(st.p, st.r,
                                     jnp.zeros((), jnp.int32))
             deg = np.asarray(dg.out_deg, np.float32)
-            # host check every segment (fenced by the np.asarray)
+            # host check every segment (np.asarray waits for the device)
             if not bool(np.asarray(
                     (st.r > rmax_pp * jnp.asarray(deg)[:, None]).any())):
                 break
@@ -155,7 +152,7 @@ def main():
 
     # --- hubppr ---
     if want("hubppr"):
-        from fora_tpu.algo import hubppr as hub_algo
+        from fora.algo import hubppr as hub_algo
         hub_walks = min(int(rcfg.omega_unit) + 1, args.hub_max_walks)
         t0 = time.time()
         hub_fn = hub_algo.make_hubppr_fn(dg, rcfg, jax.random.key(5),
@@ -168,7 +165,7 @@ def main():
                          "walks_per_query": hub_walks})
 
     # --- bippr (pairwise protocol) ---
-    from fora_tpu.algo import bippr as bippr_algo
+    from fora.algo import bippr as bippr_algo
     # pairs: (s, t) with t the exact rank-1/10/25 node of s — mass known
     # to clear the top-k threshold, BiPPR's intended regime
     pair_rank = [0, 9, 24]
@@ -180,7 +177,7 @@ def main():
     bfn = bippr_algo.make_bippr_fn(dg, rcfg, tgt) if want("bippr") else None
     if want("bippr"):
         est = np.asarray(bfn(jnp.asarray(sources, jnp.int32),
-                             jax.random.key(23)))      # [S, T] warm+fence
+                             jax.random.key(23)))      # [S, T] warm + wait
         t0 = time.time()
         est = np.asarray(bfn(jnp.asarray(sources, jnp.int32),
                              jax.random.fold_in(jax.random.key(23), 1)))
@@ -219,7 +216,7 @@ def main():
     rec = {"graph": TAG, "n": g.n, "m": g.m, "epsilon": args.eps,
            "k": args.k, "eval_queries": args.queries,
            "note": "same graph/queries/oracle as the FORA bench rows "
-                   "(BENCH_r04 / RMAXS_r04); montecarlo+hubppr walk "
+                   "; montecarlo+hubppr walk "
                    "counts capped at 2^22/query (the 1/n-guarantee "
                    "omega is ~64M at this scale — the paper's MC "
                    "impracticality point), precision reported as "

@@ -1,4 +1,4 @@
-"""Record the BASELINE config-1 artifact (CONFIG1_r{N}.json).
+"""Record the BASELINE config-1 numbers (one JSON document).
 
 Config 1 (BASELINE.md): "DBLP single-source top-50, push+walks, eps=0.5
 (CPU-runnable) — correctness slice: precision@50, query time".  Real DBLP
@@ -12,7 +12,7 @@ batch of sources at a time on the CPU backend, scores precision@50
 against the exact oracle, and also records the C++ baseline on the same
 graph/queries for context.
 
-Usage: python scripts/record_config1.py [--out CONFIG1_r04.json]
+Usage: python scripts/record_config1.py [--out config1.json]
 """
 
 import argparse
@@ -30,7 +30,7 @@ sys.path.insert(0, str(ROOT))
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--out", default="CONFIG1_r04.json")
+    ap.add_argument("--out", default="config1.json")
     ap.add_argument("--nlog2", type=int, default=18)
     ap.add_argument("--edgef", type=int, default=4)
     ap.add_argument("--queries", type=int, default=32)
@@ -41,10 +41,10 @@ def main():
     import jax
     jax.config.update("jax_platforms", "cpu")   # config 1 is CPU-runnable
     import jax.numpy as jnp
-    from fora_tpu.algo import exact, topk as topk_algo
-    from fora_tpu.config import ForaConfig
-    from fora_tpu.eval import metrics, queries as qio
-    from fora_tpu.graph import generators, to_device
+    from fora.algo import exact, topk as topk_algo
+    from fora.config import ForaConfig
+    from fora.eval import metrics, queries as qio
+    from fora.graph import generators, to_device
 
     g = generators.rmat(args.nlog2, (1 << args.nlog2) * args.edgef, seed=7)
     rcfg = ForaConfig(epsilon=args.eps, k=args.k).resolved(g.n, g.m)

@@ -1,14 +1,16 @@
-"""Record the relative-error-sweep artifact (SWEEP_r{N}.json).
+"""Record the relative-error sweep (one JSON document).
 
 BASELINE config 2 ("Web-Stanford, FORA+ precomputed walk index, batched
 queries — relative-error sweep vs epsilon") on the bench RMAT stand-in
 (real datasets unreachable; SURVEY.md header).  Drives the PRODUCT
 surface: the dataset is written in the reference on-disk format and every
-step is a `python -m fora_tpu.cli` invocation (build once at the finest
+step is a `python -m fora.cli` invocation (build once at the finest
 epsilon — the multi-resolution index serves all coarser levels — then the
-`sweep` action).
+`sweep` action).  The CLI children run one at a time and this parent
+never touches the card: each JAX process reserves most of the card's
+memory, so a second one at once would fail.
 
-Usage (TPU):  python scripts/record_sweep.py [--nlog2 19] [--out SWEEP_r03.json]
+Usage:  python scripts/record_sweep.py [--nlog2 19] [--out sweep.json]
 """
 
 import argparse
@@ -23,7 +25,7 @@ sys.path.insert(0, str(ROOT))
 
 
 def cli(args, timeout=3600):
-    cmd = [sys.executable, "-m", "fora_tpu.cli"] + args
+    cmd = [sys.executable, "-m", "fora.cli"] + args
     print("[sweep] $", " ".join(args), file=sys.stderr, flush=True)
     t0 = time.time()
     r = subprocess.run(cmd, capture_output=True, text=True, cwd=ROOT,
@@ -43,13 +45,13 @@ def main():
     ap.add_argument("--k", type=int, default=50)
     ap.add_argument("--eps-grid", default="0.1,0.2,0.35,0.5")
     ap.add_argument("--cache", default="bench_data")
-    ap.add_argument("--out", default="SWEEP_r03.json")
+    ap.add_argument("--out", default="sweep.json")
     args = ap.parse_args()
 
     import numpy as np
 
-    from fora_tpu.graph.csr import CSRGraph
-    from fora_tpu.graph.io import save_dataset
+    from fora.graph.csr import CSRGraph
+    from fora.graph.io import save_dataset
 
     tag = f"rmat{args.nlog2}x{args.edgef}s7"
     cache = ROOT / args.cache

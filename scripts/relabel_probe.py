@@ -1,13 +1,12 @@
 """Measure the dense push superstep under node relabelings (gather
 locality experiment — round-2 verdict "next" #1).
 
-The superstep's random row-gather runs at ~0.04 of HBM speed-of-light on
-v5e; node labels choose WHERE in the [n, B] operand each gather lands, so
-orders that cluster hot rows (degree-descending) or give neighbors nearby
-labels (BFS) are the one untried lever on the hot path (Pallas routes are
-measured-retired, ARCHITECTURE.md).
+The superstep's random row-gather is far below the device-memory
+roofline; node labels choose WHERE in the [n, B] operand each gather
+lands, so orders that cluster hot rows (degree-descending) or give
+neighbors nearby labels (BFS) may help a cache-backed gather.
 
-Usage (TPU):
+Usage (on the accelerator):
     python scripts/relabel_probe.py --nlog2 19 --orders identity,degree,bfs,random
     python scripts/relabel_probe.py --nlog2 22 --batch 128
 
@@ -37,15 +36,15 @@ def main():
     ap.add_argument("--seed", type=int, default=7)
     args = ap.parse_args()
 
-    import bench
-    bench.enable_compile_cache()
+    from fora.utils.compile_cache import enable_compile_cache
+    enable_compile_cache()
     import jax
     import jax.numpy as jnp
 
-    from fora_tpu.graph import generators, relabel, to_device
-    from fora_tpu.graph.csr import CSRGraph
-    from fora_tpu.ops import push as push_ops
-    from fora_tpu.utils import profiling
+    from fora.graph import generators, relabel, to_device
+    from fora.graph.csr import CSRGraph
+    from fora.ops import push as push_ops
+    from fora.utils import profiling
 
     cache = Path(args.cache)
     cache.mkdir(parents=True, exist_ok=True)

@@ -8,11 +8,10 @@ volume per superstep for each exchange mode (dense all_gather vs compact
 broadcast vs routed all-to-all) — the comm term the mesh can't hide
 (SURVEY.md Sec. 2.3 EP row).
 
-On the real pod this is run per-host via jax.distributed (see
-fora_tpu/parallel/multihost.py); on this single-chip sandbox it runs on a
-virtual CPU mesh, which validates the code path and the collective volume
-but NOT real ICI/DCN bandwidth — CPU numbers are functional, not
-performance claims.
+Across hosts this is run per-host via jax.distributed (see
+fora/parallel/multihost.py); by default it runs on a virtual CPU mesh,
+which validates the code path and the collective volume but NOT real link
+bandwidth — CPU numbers are functional, not performance claims.
 
 Usage:
   python scripts/scaling_test.py [--nlog2 16] [--edgef 8] [--batch 32]
@@ -37,8 +36,7 @@ def main():
     ap.add_argument("--meshes", default="1,2,4,8")
     ap.add_argument("--indexed", action="store_true")
     ap.add_argument("--exchange", default="dense",
-                    choices=["dense", "compact", "routed", "ragged",
-                             "hier"])
+                    choices=["dense", "compact", "routed", "hier"])
     ap.add_argument("--chips-per-host", type=int, default=2,
                     help="host grouping for the hier exchange / its "
                          "bytes model")
@@ -53,10 +51,10 @@ def main():
         jax.config.update("jax_num_cpu_devices", args.cpu_devices)
     import jax.numpy as jnp
     import numpy as np
-    from fora_tpu.config import ForaConfig
-    from fora_tpu.graph import generators, to_device
-    from fora_tpu import index as widx
-    from fora_tpu.parallel import (ShardedForaEngine, exchange_bytes_model,
+    from fora.config import ForaConfig
+    from fora.graph import generators, to_device
+    from fora import index as widx
+    from fora.parallel import (ShardedForaEngine, exchange_bytes_model,
                                    make_mesh)
 
     g = generators.rmat(args.nlog2, (1 << args.nlog2) * args.edgef, seed=7)

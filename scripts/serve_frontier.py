@@ -1,4 +1,4 @@
-"""Serving latency-throughput frontier at judged scale (SERVE_r05).
+"""Serving latency-throughput frontier at judged scale.
 
 Round-4's SERVE artifact measured one closed-loop config (256 clients,
 batch 128) whose ~30 s p50 was queueing delay by construction.  This
@@ -15,11 +15,11 @@ script measures the actual frontier (round-4 verdict directive 2):
     zero shed.
 
 Reuses bench.py's cached graph/index/exact artifacts (FORA_BENCH_* env).
-Writes one JSON document to --out (default SERVE_r05.json).
+Writes one JSON document to --out (default serve_frontier.json).
 
 Run (judged scale, on the chip):
   python scripts/serve_frontier.py --rates 2,5,8,11 --batches 32,64,128 \
-      --window 120 --out SERVE_r05.json
+      --window 120 --out serve_frontier.json
 """
 
 from __future__ import annotations
@@ -39,12 +39,13 @@ sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 def build_runner():
     import bench
     import jax
-    bench.enable_compile_cache()
+    from fora.utils.compile_cache import enable_compile_cache
+    enable_compile_cache()
     import jax.numpy as jnp
-    from fora_tpu import index as widx
-    from fora_tpu.algo import topk as topk_algo
-    from fora_tpu.config import ForaConfig
-    from fora_tpu.graph import to_device
+    from fora import index as widx
+    from fora.algo import topk as topk_algo
+    from fora.config import ForaConfig
+    from fora.graph import to_device
 
     g = bench.get_graph()
     sources = bench.get_sources(g)
@@ -145,7 +146,7 @@ def pct(lat, q):
 
 async def run_config(runner, sources, slo_exact, jax, batch, max_wait_ms,
                      rate, window_s, k):
-    from fora_tpu.serve import ForaServer
+    from fora.serve import ForaServer
 
     def query_fn(srcs, seed):
         res = runner.query_pool(np.asarray(srcs), jax.random.key(seed),
@@ -198,7 +199,7 @@ def main():
     ap.add_argument("--single-reps", type=int, default=8)
     ap.add_argument("--single-width", type=int, default=32)
     ap.add_argument("--sla-ms", type=float, default=20000.0)
-    ap.add_argument("--out", default="SERVE_r05.json")
+    ap.add_argument("--out", default="serve_frontier.json")
     args = ap.parse_args()
 
     runner, sources, slo_exact, jax = build_runner()

@@ -5,10 +5,10 @@ levels whose acceptances leave downstream batch shapes unchanged — at
 judged scale that moves the start from level 2 (first-accepting) to
 level 3.  Skipping is only a win if the merged from-scratch push at the
 deeper level costs less than the skipped level's full pass; this probe
-measures exactly that: one fresh pool per candidate start level, fenced
-end-to-end.
+measures exactly that: one fresh pool per candidate start level, timed
+end to end.
 
-Usage (TPU, after a bench has populated the cache):
+Usage (on the accelerator, after a bench has populated the cache):
   python scripts/start_level_probe.py [start_levels ...]   # default 2 3
 Scale knobs: the same FORA_BENCH_* env vars as bench.py.
 """
@@ -22,13 +22,14 @@ sys.path.insert(0, str(Path(__file__).parent.parent))
 
 def main():
     import bench
-    bench.enable_compile_cache()
+    from fora.utils.compile_cache import enable_compile_cache
+    enable_compile_cache()
     import jax
     import numpy as np
-    from fora_tpu import index as widx
-    from fora_tpu.algo import topk as topk_algo
-    from fora_tpu.config import ForaConfig
-    from fora_tpu.graph import to_device
+    from fora import index as widx
+    from fora.algo import topk as topk_algo
+    from fora.config import ForaConfig
+    from fora.graph import to_device
 
     levels = [int(x) for x in sys.argv[1:]] or [2, 3]
     g = bench.get_graph()

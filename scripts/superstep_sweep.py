@@ -15,12 +15,13 @@ sys.path.insert(0, str(Path(__file__).parent.parent))
 
 def main():
     import bench
-    bench.enable_compile_cache()
+    from fora.utils.compile_cache import enable_compile_cache
+    enable_compile_cache()
     import jax
     import jax.numpy as jnp
-    from fora_tpu.graph import to_device
-    from fora_tpu.ops import push as push_ops
-    from fora_tpu.utils import profiling
+    from fora.graph import to_device
+    from fora.ops import push as push_ops
+    from fora.utils import profiling
 
     g = bench.get_graph()
     dg = to_device(g, merge_duplicate_edges=True)

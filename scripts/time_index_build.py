@@ -1,10 +1,9 @@
-"""Time a fresh judged-scale index build (directive: < 600 s; round 3
-was 1376 s cold at ~6 s per 2^21-lane chunk).
+"""Time a fresh judged-scale index build.
 
-Round-4 levers: length-scheduled walk kernel (~10x fewer hop-gather
-elements), 2^23-lane chunks (amortize per-program overhead toward the
-~60 s watchdog budget), and 2-deep dispatch pipelining (host packing /
-checkpoint IO overlaps device execution).
+Levers in place: length-scheduled walk kernel (~10x fewer hop-gather
+elements), 2^23-lane chunks (amortize per-program overhead), and 2-deep
+dispatch pipelining (host packing / checkpoint IO overlaps device
+execution).
 
 Builds into a throwaway dir (never clobbers the bench's cached index).
 Usage: python scripts/time_index_build.py [--nlog2 22] [--chunk-log2 23]
@@ -31,13 +30,13 @@ def main():
     ap.add_argument("--out", default=None, help="optional JSON artifact")
     args = ap.parse_args()
 
-    import bench
-    bench.enable_compile_cache()
+    from fora.utils.compile_cache import enable_compile_cache
+    enable_compile_cache()
     import jax
-    from fora_tpu.config import ForaConfig
-    from fora_tpu.graph import to_device
-    from fora_tpu.graph.csr import CSRGraph
-    from fora_tpu import index as widx
+    from fora.config import ForaConfig
+    from fora.graph import to_device
+    from fora.graph.csr import CSRGraph
+    from fora import index as widx
 
     tag = f"rmat{args.nlog2}x{args.edgef}s7"
     z = np.load(ROOT / "bench_data" / f"{tag}.npz")
@@ -62,7 +61,7 @@ def main():
     build_secs = time.time() - t0
     shutil.rmtree(ckpt, ignore_errors=True)
     per_chunk = (np.diff(times).tolist() if len(times) > 1 else [])
-    from fora_tpu import _native
+    from fora import _native
     rec = {"graph": tag, "n": g.n, "m": g.m,
            "chunk_lanes": 1 << args.chunk_log2,
            "n_chunks": len(times),

@@ -14,7 +14,7 @@ oracle and prints MULTIHOST_OK.
 bench: each process contributes <local> devices; the global mesh runs the
 INDEXED sharded refinement path with the hier (ICI/DCN) exchange grouped
 at the process boundary, times batches, and process 0 prints one JSON line
-— the multi-host rows of SCALING_r{N}.json (scripts/record_scaling.py).
+— the multi-host rows of scripts/record_scaling.py.
 ``nlog2``/``batch`` size the RMAT graph (default 2^14 nodes x8 edges) and
 the query batch (default 32): the round-3 toy config (300 nodes, batch 8)
 had ~zero per-superstep compute, so its "efficiency" measured nothing but
@@ -37,23 +37,23 @@ def main():
     pid, nproc, port = int(sys.argv[1]), int(sys.argv[2]), int(sys.argv[3])
     mode = sys.argv[4] if len(sys.argv) > 4 else "check"
     local = int(sys.argv[5]) if len(sys.argv) > 5 else 4
-    from fora_tpu.parallel import multihost
+    from fora.parallel import multihost
     multihost.init(f"localhost:{port}", nproc, pid,
                    local_cpu_devices=local)
 
     import jax
     import jax.numpy as jnp
     import numpy as np
-    from fora_tpu.algo import exact
-    from fora_tpu.config import ForaConfig
-    from fora_tpu.eval import metrics
-    from fora_tpu.graph import generators
-    from fora_tpu.parallel import ShardedForaEngine, make_mesh
+    from fora.algo import exact
+    from fora.config import ForaConfig
+    from fora.eval import metrics
+    from fora.graph import generators
+    from fora.parallel import ShardedForaEngine, make_mesh
 
     assert len(jax.devices()) == local * nproc, jax.devices()
 
     if mode == "collectives":
-        from fora_tpu.parallel.mesh import GRAPH_AXIS, shard_map
+        from fora.parallel.mesh import GRAPH_AXIS, shard_map
         import jax.sharding as jsh
         mesh = make_mesh(local * nproc, 1)
         P = jsh.PartitionSpec
@@ -79,8 +79,8 @@ def main():
     if mode == "bench":
         nlog2 = int(sys.argv[6]) if len(sys.argv) > 6 else 14
         batch = int(sys.argv[7]) if len(sys.argv) > 7 else 32
-        from fora_tpu import index as widx
-        from fora_tpu.graph import to_device
+        from fora import index as widx
+        from fora.graph import to_device
         g = generators.rmat(nlog2, (1 << nlog2) * 8, seed=7)
         rcfg = ForaConfig(epsilon=0.5).resolved(g.n, g.m)
         mesh = make_mesh(local * nproc, 1)

@@ -4,9 +4,9 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from fora_tpu.algo import bippr, exact
-from fora_tpu.config import ForaConfig
-from fora_tpu.graph import generators, to_device
+from fora.algo import bippr, exact
+from fora.config import ForaConfig
+from fora.graph import generators, to_device
 
 
 def _ppr_matrix(g, alpha=0.2):
@@ -42,7 +42,7 @@ def test_bippr_ssppr_topk():
     """make_bippr_fn with targets=all nodes answers SSPPR top-k (the CLI's
     --algo bippr surface) at good precision; recall@k matches when the
     lists are equal length."""
-    from fora_tpu.eval import metrics
+    from fora.eval import metrics
     g = generators.karate_club()
     dg = to_device(g)
     rcfg = ForaConfig(epsilon=0.5).resolved(g.n, g.m)

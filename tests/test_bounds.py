@@ -13,10 +13,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from fora_tpu.algo import bounds, exact, topk as topk_algo
-from fora_tpu.config import ForaConfig
-from fora_tpu.graph import generators, to_device
-from fora_tpu.eval import metrics
+from fora.algo import bounds, exact, topk as topk_algo
+from fora.config import ForaConfig
+from fora.graph import generators, to_device
+from fora.eval import metrics
 
 
 def _ub_numpy(mu_hat, c, t):
@@ -98,7 +98,7 @@ def test_pool_bounds_contain_exact(use_index):
     dg = to_device(g)
     idx = None
     if use_index:
-        from fora_tpu import index as widx
+        from fora import index as widx
         idx = widx.build_walk_index(dg, rcfg, jax.random.key(1))
     runner = topk_algo.TopkRunner(dg, rcfg, k=5, index=idx)
     sources = np.arange(8)
@@ -125,7 +125,7 @@ def test_query_accepts_at_pool_level():
     — so on a gap-at-k fixture it accepts at the same level instead of
     paying extra levels for zeros-as-p's wider bounds (round-2 verdict
     weak #8)."""
-    from fora_tpu import index as widx
+    from fora import index as widx
     g = generators.karate_club()
     rcfg = ForaConfig(epsilon=0.5, k=5).resolved(g.n, g.m)
     dg = to_device(g)
@@ -153,7 +153,7 @@ def test_topk_rows_chunked_matches_dense():
     import jax
     import jax.numpy as jnp
     import numpy as np
-    from fora_tpu.ops.topk import topk_rows_chunked
+    from fora.ops.topk import topk_rows_chunked
 
     rng = np.random.default_rng(0)
     n, B, k = 1000, 7, 12

@@ -6,16 +6,16 @@ import jax
 import numpy as np
 import pytest
 
-from fora_tpu import index as widx
-from fora_tpu.config import ForaConfig
-from fora_tpu.graph import generators, to_device
-from fora_tpu.parallel import make_mesh
+from fora import index as widx
+from fora.config import ForaConfig
+from fora.graph import generators, to_device
+from fora.parallel import make_mesh
 
 
 def _setup(n=300, m=3000, seed=21, weighted=False):
     g = generators.erdos_renyi(n, m, seed=seed)
     if weighted:
-        from fora_tpu.graph.csr import from_edges
+        from fora.graph.csr import from_edges
         src = np.repeat(np.arange(g.n, dtype=np.int64),
                         np.asarray(g.out_deg, np.int64))
         w = np.random.default_rng(seed).uniform(0.2, 3.0, g.m)

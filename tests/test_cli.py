@@ -11,11 +11,11 @@ import json
 import numpy as np
 import pytest
 
-from fora_tpu import cli
-from fora_tpu.algo import exact
-from fora_tpu.eval import metrics
-from fora_tpu.graph import generators
-from fora_tpu.graph.io import save_dataset
+from fora import cli
+from fora.algo import exact
+from fora.eval import metrics
+from fora.graph import generators
+from fora.graph.io import save_dataset
 
 
 @pytest.fixture(scope="module")
@@ -200,13 +200,13 @@ def test_cli_serve_action_tcp(dataset):
     prefix, g = dataset
     env = dict(os.environ, JAX_PLATFORMS="cpu")
     proc = subprocess.Popen(
-        [sys.executable, "-m", "fora_tpu.cli", "serve",
+        [sys.executable, "-m", "fora.cli", "serve",
          "--prefix", str(prefix), "--dataset", "er", "--with-idx",
          "--batch", "4", "--k", "8", "--port", "0"],
         stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True,
         env=env)
     try:
-        line = proc.stdout.readline()       # "[fora-tpu] serving on h:p"
+        line = proc.stdout.readline()       # "[fora] serving on h:p"
         assert "serving on" in line, line
         port = int(line.rsplit(":", 1)[1])
         deadline = time.time() + 120

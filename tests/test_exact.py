@@ -4,8 +4,8 @@ import math
 
 import numpy as np
 
-from fora_tpu.algo import exact
-from fora_tpu.graph import generators
+from fora.algo import exact
+from fora.graph import generators
 
 
 def test_cycle_closed_form():
@@ -62,7 +62,7 @@ def test_power_batch_matches_per_source():
     ping-pong buffer) reproduces the per-source bincount oracle to
     near-machine precision, including dangling rows and both thread
     counts (1 exercises the single-part path)."""
-    from fora_tpu.graph import generators
+    from fora.graph import generators
     g = generators.erdos_renyi(1500, 18000, seed=21)
     srcs = np.array([3, 700, 1100, 1499])
     for threads in (1, 2):

@@ -5,11 +5,11 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from fora_tpu.algo import exact, fora, montecarlo, topk as topk_algo
-from fora_tpu.config import ForaConfig
-from fora_tpu.eval import metrics
-from fora_tpu.graph import generators, to_device
-from fora_tpu.ops import topk as topk_ops
+from fora.algo import exact, fora, montecarlo, topk as topk_algo
+from fora.config import ForaConfig
+from fora.eval import metrics
+from fora.graph import generators, to_device
+from fora.ops import topk as topk_ops
 
 
 def test_fora_karate_accuracy():
@@ -97,7 +97,7 @@ def test_fora_deterministic_given_key():
 def test_topk_query_pool_matches_query():
     """Level-pipelined pool scheduling returns the same accepted top-k sets
     as the all-advance batch loop."""
-    from fora_tpu.algo import topk as topk_algo
+    from fora.algo import topk as topk_algo
     g = generators.erdos_renyi(400, 4000, seed=13)
     dg = to_device(g)
     rcfg = ForaConfig(epsilon=0.5, k=8).resolved(g.n, g.m)
@@ -113,7 +113,7 @@ def test_topk_query_pool_matches_query():
 def test_topk_query_pool_adaptive_width():
     """With batch > 128, straggler levels re-batch at narrower widths
     (>= 128) and results still match the exact oracle."""
-    from fora_tpu.algo import topk as topk_algo
+    from fora.algo import topk as topk_algo
     g = generators.erdos_renyi(500, 6000, seed=17)
     dg = to_device(g)
     rcfg = ForaConfig(epsilon=0.5, k=8).resolved(g.n, g.m)
@@ -136,7 +136,7 @@ def test_topk_query_pool_adaptive_width():
 def test_topk_query_pool_adaptive_start_level():
     """A second pool run skips levels that accepted nothing in the first,
     with identical acceptance and matching results."""
-    from fora_tpu.algo import topk as topk_algo
+    from fora.algo import topk as topk_algo
     g = generators.erdos_renyi(400, 4000, seed=13)
     dg = to_device(g)
     rcfg = ForaConfig(epsilon=0.5, k=8).resolved(g.n, g.m)
@@ -163,8 +163,8 @@ def test_level_stats_persist_across_runners(tmp_path):
     """The learned start level survives process restarts via the persisted
     stats file — keyed by graph content + config, so a different graph or
     config refuses the record instead of inheriting a wrong start level."""
-    from fora_tpu.algo import topk as topk_algo
-    from fora_tpu.index.store import graph_fingerprint
+    from fora.algo import topk as topk_algo
+    from fora.index.store import graph_fingerprint
     g = generators.erdos_renyi(400, 4000, seed=13)
     dg = to_device(g)
     rcfg = ForaConfig(epsilon=0.5, k=8).resolved(g.n, g.m)
@@ -205,7 +205,7 @@ def test_topk_pool_straggler_deferral_indexed():
     them from the stashed push state.  In indexed mode the walk phase is a
     deterministic SpMV, so deferral + flush reproduces the uninterrupted
     pool refinement bitwise."""
-    from fora_tpu import index as widx
+    from fora import index as widx
     g = generators.erdos_renyi(400, 4000, seed=13)
     dg = to_device(g)
     rcfg = ForaConfig(epsilon=0.5, k=8).resolved(g.n, g.m)
@@ -279,7 +279,7 @@ def test_topk_pool_push_pair_matches_single():
     deterministic, and the paired scatter adds the same edge
     contributions per destination in the same order — results must match
     the unpaired pool to f32 round-off, with identical top-k ids."""
-    from fora_tpu import index as widx
+    from fora import index as widx
     g = generators.erdos_renyi(400, 4000, seed=13)
     dg = to_device(g)
     rcfg = ForaConfig(epsilon=0.5, k=8).resolved(g.n, g.m)
@@ -303,7 +303,7 @@ def test_topk_pool_push_pair_matches_single():
 def test_topk_pool_push_pair_odd_blocks():
     """An odd trailing block falls back to the single-block level step;
     pairing must not disturb per-query results or bookkeeping."""
-    from fora_tpu import index as widx
+    from fora import index as widx
     g = generators.erdos_renyi(300, 2400, seed=5)
     dg = to_device(g)
     rcfg = ForaConfig(epsilon=0.5, k=6).resolved(g.n, g.m)
@@ -325,7 +325,7 @@ def test_topk_pool_walk_half_matches_full():
     column-windowed gathers; same edges, same f32 accumulation per
     column — results must match the full-width path exactly (ids,
     acceptance) with values equal to round-off."""
-    from fora_tpu import index as widx
+    from fora import index as widx
     g = generators.erdos_renyi(400, 4000, seed=13)
     dg = to_device(g)
     rcfg = ForaConfig(epsilon=0.5, k=8).resolved(g.n, g.m)
@@ -353,7 +353,7 @@ def test_topk_pool_stepped_push_matches_while_loop():
     with its threaded contrib slot and lagged convergence polls) must
     reproduce the while-loop path exactly: same scatter-added sums in the
     same order, one superstep per iteration."""
-    from fora_tpu import index as widx
+    from fora import index as widx
     g = generators.erdos_renyi(400, 4000, seed=13)
     dg = to_device(g)
     rcfg = ForaConfig(epsilon=0.5, k=8).resolved(g.n, g.m)
@@ -376,7 +376,7 @@ def test_topk_pool_narrow_r_close_to_full():
     rounding per level, f32 everywhere else).  Results must agree with
     the f32 path on ids and acceptance for non-borderline queries; values
     within the ~0.4% bf16 perturbation."""
-    from fora_tpu import index as widx
+    from fora import index as widx
     g = generators.erdos_renyi(400, 4000, seed=13)
     dg = to_device(g)
     rcfg = ForaConfig(epsilon=0.5, k=8).resolved(g.n, g.m)

@@ -3,7 +3,7 @@
 import numpy as np
 import pytest
 
-from fora_tpu.graph import (
+from fora.graph import (
     from_edges, build_alias, generators, io,
 )
 
@@ -90,7 +90,7 @@ def test_dataset_io_roundtrip(tmp_path):
 
 
 def test_native_parser_matches_numpy(tmp_path):
-    from fora_tpu._native import native_parse_edges
+    from fora._native import native_parse_edges
     if native_parse_edges is None:
         pytest.skip("native library not built")
     p = tmp_path / "graph.txt"

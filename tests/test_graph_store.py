@@ -6,13 +6,13 @@ import jax
 import numpy as np
 import pytest
 
-from fora_tpu import index as widx
-from fora_tpu.config import ForaConfig
-from fora_tpu.graph import generators, to_device
-from fora_tpu.parallel import ShardedForaEngine, ShardedTopkRunner, make_mesh
-from fora_tpu.parallel.graph_store import (ShardedGraphStore,
+from fora import index as widx
+from fora.config import ForaConfig
+from fora.graph import generators, to_device
+from fora.parallel import ShardedForaEngine, ShardedTopkRunner, make_mesh
+from fora.parallel.graph_store import (ShardedGraphStore,
                                            save_sharded_graph)
-from fora_tpu.parallel.partition import (needed_host_masks, needed_masks,
+from fora.parallel.partition import (needed_host_masks, needed_masks,
                                          partition_rows)
 
 
@@ -21,7 +21,7 @@ def _graph_and_cfg(n=300, m=3000, seed=21, eps=0.5, weighted=False):
     if weighted:
         rng = np.random.default_rng(5)
         w = rng.uniform(0.5, 2.0, size=g.m).astype(np.float32)
-        from fora_tpu.graph.csr import from_edges
+        from fora.graph.csr import from_edges
         src = np.repeat(np.arange(g.n), np.asarray(g.out_deg, np.int64))
         g = from_edges(src, np.asarray(g.out_indices), g.n, w=w)
     rcfg = ForaConfig(epsilon=eps).resolved(g.n, g.m)
@@ -33,7 +33,7 @@ def test_graph_store_matches_partition(tmp_path, weighted):
     """save_sharded_graph + ShardedGraphStore serve byte-identical arrays
     to an in-RAM partition_rows/_shard_csr, and per-shard on-disk bytes
     are ~1/G of the total."""
-    from fora_tpu.index.build_sharded import _shard_csr
+    from fora.index.build_sharded import _shard_csr
 
     g, _ = _graph_and_cfg(weighted=weighted)
     G = 4
@@ -80,7 +80,7 @@ def test_store_placement_equals_in_ram_placement(tmp_path):
     """A _ShardedPlacement built from the store device-places the same
     arrays as one built from the full CSR (routed exchange: includes the
     needed mask; hier: includes the derived per-host mask)."""
-    from fora_tpu.parallel.sharded import _ShardedPlacement
+    from fora.parallel.sharded import _ShardedPlacement
 
     g, rcfg = _graph_and_cfg()
     G = 4
@@ -107,7 +107,7 @@ def test_sharded_runner_from_graph_store_matches(tmp_path):
     """The refinement pool fed from graph-store files returns the in-RAM
     graph's results bit-for-bit — including with the sharded INDEX store,
     i.e. a fully store-backed engine start with no global array."""
-    from fora_tpu.index import store as widx_store
+    from fora.index import store as widx_store
 
     g, rcfg = _graph_and_cfg()
     dg = to_device(g)
@@ -157,12 +157,12 @@ def test_graph_store_mismatch_guards(tmp_path):
     st = ShardedGraphStore(tmp_path, 4)
     mesh = make_mesh(2, 4)
     with pytest.raises(ValueError, match="4-way"):
-        from fora_tpu.parallel.sharded import _ShardedPlacement
+        from fora.parallel.sharded import _ShardedPlacement
         _ShardedPlacement(st, mesh, None)
     # store saved without walk side refuses raw-walk mode
     save_sharded_graph(g, tmp_path / "nw", 2, with_walk_side=False)
     st2 = ShardedGraphStore(tmp_path / "nw", 2)
     mesh2 = make_mesh(2, 4)
     with pytest.raises(ValueError, match="walk-side"):
-        from fora_tpu.parallel.sharded import _ShardedPlacement
+        from fora.parallel.sharded import _ShardedPlacement
         _ShardedPlacement(st2, mesh2, None, with_walk_side=True)

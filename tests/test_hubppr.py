@@ -6,9 +6,9 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from fora_tpu.algo import exact, hubppr
-from fora_tpu.config import ForaConfig
-from fora_tpu.graph import generators, to_device
+from fora.algo import exact, hubppr
+from fora.config import ForaConfig
+from fora.graph import generators, to_device
 
 
 def test_hub_index_structure():
@@ -66,7 +66,7 @@ def test_hub_walks_cycle_with_hub_on_path():
     hub_id = np.full(n, -1, np.int32)
     hub_id[2] = 0
     # honest pool for node 2: plain walks
-    from fora_tpu.ops import walk as walk_ops
+    from fora.ops import walk as walk_ops
     pool = walk_ops.run_walks(dg, jnp.full((4096, 1), 2, jnp.int32),
                               jax.random.key(3), alpha=0.2).T
     hub = hubppr.HubIndex(jnp.asarray(hub_nodes), jnp.asarray(hub_id),

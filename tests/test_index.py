@@ -7,12 +7,12 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from fora_tpu import index as widx
-from fora_tpu.algo import exact, fora
-from fora_tpu.config import ForaConfig
-from fora_tpu.eval import metrics
-from fora_tpu.graph import generators, to_device
-from fora_tpu.ops import topk as topk_ops
+from fora import index as widx
+from fora.algo import exact, fora
+from fora.config import ForaConfig
+from fora.eval import metrics
+from fora.graph import generators, to_device
+from fora.ops import topk as topk_ops
 
 
 def _setup(eps=0.5, gen=generators.karate_club):
@@ -201,7 +201,7 @@ def test_index_compat_rejects_coarser(tmp_path):
 def test_staged_query_pool_matches_fused():
     """The staged (shared compiled pieces) indexed pool runner matches the
     per-depth fused path bit-for-bit (both are deterministic SpMV)."""
-    from fora_tpu.algo import topk as topk_algo
+    from fora.algo import topk as topk_algo
     g = generators.erdos_renyi(400, 4000, seed=17)
     dg = to_device(g)
     rcfg = ForaConfig(epsilon=0.5, k=8).resolved(g.n, g.m)
@@ -211,7 +211,7 @@ def test_staged_query_pool_matches_fused():
     pool = runner.query_pool(sources, jax.random.key(21), batch=8)
     # fused per-depth state path
     fused_fn = fora.make_fora_state_fn(dg, rcfg, 0, index=idx, index_depth=0)
-    from fora_tpu.ops import push as push_ops
+    from fora.ops import push as push_ops
     import jax.numpy as jnp
     st0 = push_ops.init_state(g.n, jnp.asarray(sources[:8], jnp.int32))
     res_f, _, _ = fused_fn(st0.p, st0.r, None, np.float32(rcfg.rmax),
@@ -227,7 +227,7 @@ def test_build_checkpoint_resume(tmp_path, monkeypatch):
     """An interrupted index build resumes from its chunk checkpoints and
     produces a bit-identical index; a mismatched checkpoint is refused."""
     import pytest
-    from fora_tpu.index import build as ib
+    from fora.index import build as ib
 
     g = generators.erdos_renyi(300, 3000, seed=5)
     dg = to_device(g)
@@ -276,7 +276,7 @@ def test_store_refuses_same_shape_different_graph(tmp_path):
     """(n, m) alone can't identify a graph: a content-fingerprinted index
     refuses to serve a rewired or reweighted graph of the same shape."""
     import pytest
-    from fora_tpu.index import store
+    from fora.index import store
     g1 = generators.erdos_renyi(200, 1500, seed=1)
     g2 = generators.erdos_renyi(200, 1500, seed=2)   # same (n, m)
     rcfg = ForaConfig(epsilon=0.5).resolved(g1.n, g1.m)
@@ -288,44 +288,12 @@ def test_store_refuses_same_shape_different_graph(tmp_path):
         widx.load(str(tmp_path / "i"), rcfg, graph=g2)
 
 
-def test_segmented_push_matches_single_program():
-    """The host-segmented push (the 60s-execution-watchdog guard) is
-    equivalent to one uncapped while_loop program: forcing 1-superstep
-    segments changes nothing but the program count."""
-    from fora_tpu.algo import fora as fora_algo
-    import jax.numpy as jnp
-    g = generators.erdos_renyi(300, 3000, seed=13)
-    dg = to_device(g)
-    rcfg = ForaConfig(epsilon=0.5).resolved(g.n, g.m)
-    idx = widx.build_walk_index(dg, rcfg, jax.random.key(1))
-    one = fora_algo.StagedForaPrograms(dg, rcfg, idx)          # ~1 segment
-    tiny = fora_algo.StagedForaPrograms(dg, rcfg, idx,
-                                        push_segment_secs=1e-9)
-    assert tiny._segment_iters(8) == 4          # floor
-    from fora_tpu.ops import push as push_ops
-    src = jnp.asarray(np.arange(8), jnp.int32)
-    st1 = push_ops.init_state(g.n, src)
-    st2 = push_ops.init_state(g.n, src)
-    r1, p1, res_r1 = one.state_fn(0)(st1.p, st1.r, None,
-                                     np.float32(rcfg.rmax),
-                                     np.float32(rcfg.omega_unit))
-    r2, p2, res_r2 = tiny.state_fn(0)(st2.p, st2.r, None,
-                                      np.float32(rcfg.rmax),
-                                      np.float32(rcfg.omega_unit))
-    np.testing.assert_allclose(np.asarray(r1.ppr), np.asarray(r2.ppr),
-                               rtol=1e-6)
-    np.testing.assert_allclose(np.asarray(p1), np.asarray(p2), rtol=1e-6)
-    np.testing.assert_allclose(np.asarray(res_r1), np.asarray(res_r2),
-                               rtol=1e-6)
-    assert int(r1.push_iters) == int(r2.push_iters)
-
-
 def test_pack_fast_path_equals_legacy_merge():
     """pack_index's packed-key fast path produces exactly the legacy
     pipeline's merged layout: pack(dedup=False) (legacy sort) upgraded by
     dedup_index equals pack(dedup=True) (fast path) bit for bit."""
-    from fora_tpu.config import ForaConfig
-    from fora_tpu.index import build as ib
+    from fora.config import ForaConfig
+    from fora.index import build as ib
 
     rng = np.random.default_rng(3)
     n = 1 << 10

@@ -1,8 +1,12 @@
 """Roofline accounting and measurement helper tests (SURVEY.md Sec. 5.1)."""
 
-import jax.numpy as jnp
+import types
 
-from fora_tpu.utils import profiling
+import jax
+import jax.numpy as jnp
+import pytest
+
+from fora.utils import profiling
 
 
 def test_spmv_roofline_accounting():
@@ -23,4 +27,21 @@ def test_measure_blocks_and_returns_median():
 
 
 def test_device_hbm_bw_fallback():
-    assert profiling.device_hbm_bw() > 0
+    """No fallback: a device kind missing from the table (here the CPU the
+    suite runs on) raises instead of borrowing another chip's peak."""
+    with pytest.raises(ValueError, match="no HBM bandwidth"):
+        profiling.device_hbm_bw(jax.devices()[0])
+
+
+@pytest.mark.parametrize("kind,bw", [("NVIDIA H100 80GB HBM3", 3.35e12),
+                                     ("NVIDIA H100 PCIe", 2.0e12),
+                                     ("NVIDIA H100 NVL", 3.9e12)])
+def test_device_hbm_bw_h100_kinds(kind, bw):
+    dev = types.SimpleNamespace(device_kind=kind)
+    assert profiling.device_hbm_bw(dev) == bw
+
+
+def test_device_hbm_bw_unknown_gpu_raises():
+    dev = types.SimpleNamespace(device_kind="NVIDIA A100-SXM4-80GB")
+    with pytest.raises(ValueError, match="A100"):
+        profiling.device_hbm_bw(dev)

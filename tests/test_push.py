@@ -4,9 +4,9 @@ and push-only estimates vs the dense oracle (SURVEY.md Sec. 4)."""
 import numpy as np
 import jax.numpy as jnp
 
-from fora_tpu.algo import exact
-from fora_tpu.graph import generators, to_device
-from fora_tpu.ops import push as push_ops
+from fora.algo import exact
+from fora.graph import generators, to_device
+from fora.ops import push as push_ops
 
 
 def _ppr_matrix(g, alpha=0.2):
@@ -170,7 +170,7 @@ def test_merged_duplicate_edges_match_multigraph():
     dst = rng.integers(0, n, size=m)
     src = np.concatenate([src, src[:200]])   # force heavy duplication
     dst = np.concatenate([dst, dst[:200]])
-    from fora_tpu.graph.csr import from_edges
+    from fora.graph.csr import from_edges
     g = from_edges(src, dst, n)
     dg_raw = to_device(g)
     dg_merged = to_device(g, merge_duplicate_edges=True)
@@ -189,7 +189,7 @@ def test_hub_split_matches_dense():
     bit-identical to the dense single-gather superstep (same edges, same
     weights, two dst-sorted segment sums)."""
     import jax.numpy as jnp
-    from fora_tpu.graph import generators, to_device
+    from fora.graph import generators, to_device
 
     g = generators.rmat(10, 1024 * 8, seed=3)    # parallel edges included
     for merge in (False, True):
@@ -208,8 +208,8 @@ def test_hub_split_matches_dense():
 
 
 def test_hub_split_weighted_matches_dense():
-    from fora_tpu.graph import generators, to_device
-    from fora_tpu.graph.csr import from_edges
+    from fora.graph import generators, to_device
+    from fora.graph.csr import from_edges
     import jax.numpy as jnp
 
     g = generators.erdos_renyi(400, 4000, seed=11)
@@ -233,8 +233,8 @@ def test_pad_edge_arrays_and_padded_graph_equivalence():
     for free in the chunked kernels."""
     import numpy as np
 
-    from fora_tpu.graph import generators, to_device
-    from fora_tpu.ops import push as push_ops
+    from fora.graph import generators, to_device
+    from fora.ops import push as push_ops
 
     g = generators.erdos_renyi(300, 5000, seed=3)
     pad = 1 << 10

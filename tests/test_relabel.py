@@ -7,10 +7,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from fora_tpu import index as widx
-from fora_tpu.algo import exact, fora
-from fora_tpu.config import ForaConfig
-from fora_tpu.graph import generators, relabel, to_device
+from fora import index as widx
+from fora.algo import exact, fora
+from fora.config import ForaConfig
+from fora.graph import generators, relabel, to_device
 
 
 @pytest.mark.parametrize("order", ["degree", "bfs", "random"])
@@ -48,7 +48,7 @@ def test_relabel_graph_preserves_exact_ppr():
 
 def test_relabel_weighted_graph():
     rng = np.random.default_rng(2)
-    from fora_tpu.graph.csr import from_edges
+    from fora.graph.csr import from_edges
     src = rng.integers(0, 50, 400)
     dst = rng.integers(0, 50, 400)
     w = rng.random(400).astype(np.float32) + 0.1

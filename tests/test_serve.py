@@ -6,7 +6,7 @@ import json
 import numpy as np
 import pytest
 
-from fora_tpu.serve import ForaServer
+from fora.serve import ForaServer
 
 
 def _echo_query_fn(sources, seed):

@@ -6,15 +6,15 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from fora_tpu import index as widx
-from fora_tpu.algo import exact
-from fora_tpu.config import ForaConfig
-from fora_tpu.eval import metrics
-from fora_tpu.graph import generators, to_device
-from fora_tpu.parallel import (ShardedForaEngine, ShardedTopkRunner,
+from fora import index as widx
+from fora.algo import exact
+from fora.config import ForaConfig
+from fora.eval import metrics
+from fora.graph import generators, to_device
+from fora.parallel import (ShardedForaEngine, ShardedTopkRunner,
                                exchange_bytes_model, make_mesh,
                                partition_rows, partition_index)
-from fora_tpu.parallel.partition import needed_masks
+from fora.parallel.partition import needed_masks
 
 
 def _graph_and_cfg(n=300, m=3000, seed=21, eps=0.5):
@@ -186,12 +186,9 @@ def test_exchange_bytes_model_ordering():
     dense = exchange_bytes_model("dense", **kw)
     compact = exchange_bytes_model("compact", cap=1024, **kw)
     routed = exchange_bytes_model("routed", cap=1024, **kw)
-    ragged = exchange_bytes_model("ragged", cap=1024,
-                                  active_rows=np.full(7, 100), **kw)
     assert dense > compact
-    # routed pads per-destination but sends to G-1 peers like compact;
-    # ragged with sparse real counts undercuts everything
-    assert ragged < routed <= compact < dense
+    # routed pads per-destination but sends to G-1 peers like compact
+    assert routed <= compact < dense
 
 
 def test_sharded_pool_matches_single_chip():
@@ -200,7 +197,7 @@ def test_sharded_pool_matches_single_chip():
     single-chip TopkRunner on the same graph + index (indexed mode is
     deterministic — the only differences are float reassociation in the
     sharded segment sums)."""
-    from fora_tpu.algo.topk import TopkRunner
+    from fora.algo.topk import TopkRunner
     g, rcfg = _graph_and_cfg(n=400, m=4000)
     dg = to_device(g)
     idx = widx.build_walk_index(dg, rcfg, jax.random.key(7))
@@ -260,7 +257,7 @@ def test_hier_exchange_pool_runner():
 def test_needed_host_masks_and_dcn_bytes():
     """Host masks OR the chip masks; hier's DCN volume beats routed's
     whenever a row is needed by >1 chip of a host (the staging's point)."""
-    from fora_tpu.parallel.partition import needed_host_masks
+    from fora.parallel.partition import needed_host_masks
     g, _ = _graph_and_cfg()
     G, C = 4, 2
     pg = partition_rows(g, G)
@@ -307,8 +304,8 @@ def test_sharded_index_store_matches_partition(tmp_path):
     in-RAM partition_index of the monolithic index, and per-shard on-disk
     load is ~1/G of the total (the SURVEY Sec. 5.4 contract: each host
     reads only its rows)."""
-    from fora_tpu.index import store as widx_store
-    from fora_tpu.parallel.partition import partition_rows
+    from fora.index import store as widx_store
+    from fora.parallel.partition import partition_rows
 
     g, rcfg = _graph_and_cfg(n=200, m=2000)
     dg = to_device(g)
@@ -351,7 +348,7 @@ def test_sharded_index_store_matches_partition(tmp_path):
 def test_sharded_runner_from_store_matches_in_memory(tmp_path):
     """The refinement pool fed from the shard files returns the in-memory
     index's results bit-for-bit (same partitioned layout, same programs)."""
-    from fora_tpu.index import store as widx_store
+    from fora.index import store as widx_store
 
     g, rcfg = _graph_and_cfg()
     dg = to_device(g)
@@ -380,7 +377,7 @@ def test_raw_walk_no_replicated_csr():
     g, rcfg = _graph_and_cfg()
     mesh = make_mesh(4, 2)
     eng = ShardedForaEngine(g, mesh, rcfg, k=10)
-    from fora_tpu.parallel.mesh import GRAPH_AXIS
+    from fora.parallel.mesh import GRAPH_AXIS
     for a in eng._args:
         sh = a.sharding
         spec = sh.spec

@@ -7,9 +7,9 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from fora_tpu.algo import exact
-from fora_tpu.graph import build_alias, generators, to_device
-from fora_tpu.ops import walk as walk_ops
+from fora.algo import exact
+from fora.graph import build_alias, generators, to_device
+from fora.ops import walk as walk_ops
 
 
 def test_geometric_lengths_distribution():
@@ -116,8 +116,8 @@ def test_scheduled_walk_matches_distribution():
     """run_walks_scheduled endpoints follow the same distribution as the
     plain lockstep walk: endpoint frequencies from a single hub source
     match exact PPR (both kernels, same tolerance)."""
-    from fora_tpu.algo import exact
-    from fora_tpu.graph import generators, to_device
+    from fora.algo import exact
+    from fora.graph import generators, to_device
 
     g = generators.erdos_renyi(60, 600, seed=9)
     dg = to_device(g)
@@ -136,7 +136,7 @@ def test_scheduled_walk_matches_distribution():
 def test_scheduled_walk_overflow_flag():
     """A schedule too tight for the sampled lengths reports ok=False (the
     builder then falls back to the plain kernel)."""
-    from fora_tpu.graph import generators, to_device
+    from fora.graph import generators, to_device
 
     g = generators.erdos_renyi(60, 600, seed=9)
     dg = to_device(g)

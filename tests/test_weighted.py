@@ -8,12 +8,12 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from fora_tpu import index as widx
-from fora_tpu.algo import exact, fora
-from fora_tpu.config import ForaConfig
-from fora_tpu.eval import metrics
-from fora_tpu.graph import generators, io, to_device
-from fora_tpu.graph.csr import from_edges
+from fora import index as widx
+from fora.algo import exact, fora
+from fora.config import ForaConfig
+from fora.eval import metrics
+from fora.graph import generators, io, to_device
+from fora.graph.csr import from_edges
 
 
 def _weighted_graph(n=300, m=3000, seed=11):
@@ -56,7 +56,7 @@ def test_weighted_exact_dense_matches_power():
 def test_weighted_push_invariant_and_convergence():
     """The weighted push must preserve pi = p + sum_v r_v pi_v at every
     superstep; with rmax -> 0 the settled mass converges to exact PPR."""
-    from fora_tpu.ops import push as push_ops
+    from fora.ops import push as push_ops
     g = _weighted_graph(n=80, m=600)
     dg = to_device(g)
     st = push_ops.forward_push(dg, jnp.asarray([3, 17], jnp.int32),
@@ -96,7 +96,7 @@ def test_weighted_fora_indexed_matches_oracle():
 
 def test_weighted_merge_duplicates_matches_unmerged():
     """Parallel weighted edges merged by summing weights: identical push."""
-    from fora_tpu.ops import push as push_ops
+    from fora.ops import push as push_ops
     rng = np.random.default_rng(3)
     n, m = 60, 500
     src = rng.integers(0, n, m)
@@ -115,7 +115,7 @@ def test_weighted_merge_duplicates_matches_unmerged():
 
 def test_weighted_walk_endpoint_distribution():
     """chi^2: endpoints of 1-hop walks from a hub follow w/W, not 1/deg."""
-    from fora_tpu.ops import walk as walk_ops
+    from fora.ops import walk as walk_ops
     n = 6
     src = np.zeros(5, np.int64)
     dst = np.arange(1, 6, dtype=np.int64)
@@ -134,7 +134,7 @@ def test_weighted_walk_endpoint_distribution():
 
 
 def test_weighted_sharded_matches_oracle():
-    from fora_tpu.parallel import ShardedForaEngine, ShardedTopkRunner, \
+    from fora.parallel import ShardedForaEngine, ShardedTopkRunner, \
         make_mesh
     g = _weighted_graph()
     rcfg = ForaConfig(epsilon=0.5).resolved(g.n, g.m)
@@ -155,7 +155,7 @@ def test_weighted_sharded_matches_oracle():
 
 
 def test_weighted_bippr_matches_oracle():
-    from fora_tpu.algo import bippr
+    from fora.algo import bippr
     g = _weighted_graph(n=150, m=1200)
     rcfg = ForaConfig(epsilon=0.3).resolved(g.n, g.m)
     dg = to_device(g)
@@ -172,8 +172,8 @@ def test_weighted_bippr_matches_oracle():
 def test_native_alias_matches_python_distribution():
     """The C++ alias builder and the Python Vose fallback induce the same
     per-neighbor sampling distribution (tables may differ in stack order)."""
-    from fora_tpu._native import native_build_alias
-    from fora_tpu.graph import alias as al
+    from fora._native import native_build_alias
+    from fora.graph import alias as al
     if native_build_alias is None:
         pytest.skip("native library unavailable")
     g = _weighted_graph(n=100, m=1500)
